@@ -24,6 +24,7 @@ import numpy as np
 from ..config import EncoderConfig, SequenceConfig
 from ..models.encoder import Encoder
 from ..utils import yuv
+from ..utils.compile_cache import enable_compile_cache
 from ..utils.logging import ProgressLogger
 
 
@@ -42,7 +43,7 @@ def _level_for(extent: int) -> int:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="fpga_mpeg2_encoder_tpu.cli.encode",
-        description="TPU-native MPEG-2 encoder: raw YUV 4:4:4 in, .m2v out")
+        description="MPEG-2 encoder in JAX: raw YUV 4:4:4 in, .m2v out")
     p.add_argument("--input", action="append", required=True,
                    help="planar YUV 4:4:4 file (frame-major Y,U,V planes)")
     p.add_argument("--size", action="append", required=True,
@@ -71,6 +72,7 @@ def main(argv=None) -> int:
         if w % 16 or h % 16 or not (64 <= w <= 2048 and 64 <= h <= 2048):
             p.error(f"invalid size {w}x{h}: multiples of 16 in [64, 2048]")
 
+    enable_compile_cache()
     xl = _level_for(max(w for w, _ in sizes))
     yl = _level_for(max(h for _, h in sizes))
     enc = Encoder(EncoderConfig(xl=xl, yl=yl, vector_level=args.vector_level,

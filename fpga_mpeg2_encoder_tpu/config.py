@@ -3,8 +3,8 @@
 Mirrors the reference's two-tier config system (RTL/mpeg2encoder.v:10-14 compile-time
 parameters vs :16-22 per-sequence ports):
 
-* ``EncoderConfig`` - construction-time, shape-static knobs.  These bake kernel grids
-  and search-window sizes into the jitted TPU programs (the analog of Verilog
+* ``EncoderConfig`` - construction-time, shape-static knobs.  These bake array
+  shapes and search-window sizes into the jitted programs (the analog of Verilog
   parameters XL/YL/VECTOR_LEVEL/Q_LEVEL sizing BRAMs and SAD arrays).
 * ``SequenceConfig`` - per-sequence runtime settings, latched at sequence start
   (the analog of i_xsize16/i_ysize16/i_pframes_count, RTL/mpeg2encoder.v:1060-1068).

@@ -9,7 +9,7 @@ Every table mirrors a LUT of the reference design:
 
 Derived, framework-specific layouts (not in the reference, built for vectorised use):
   DCT64_HI/DCT64_LO : the 2-D DCT as a single exact 64x64 integer matrix, split into
-                      7-bit halves so each half-matmul is exact in float32 on the MXU.
+                      7-bit halves so each half-matmul is exact (bf16 operands, f32 sums).
   AC_CODE/AC_LEN    : dense (33, 41) run/level -> (code<<1 | needs-sign, bits) lookup,
                       entry invalid (use 24-bit escape) where AC_VALID is 0.
 """

@@ -2,7 +2,7 @@
 
 This is the framework's executable specification: every arithmetic step reproduces the
 reference datapath (RTL/mpeg2encoder.v) exactly, including fixed-point truncations,
-overflow masks and tie-break orders.  The TPU (JAX/Pallas) pipeline is unit-tested
+overflow masks and tie-break orders.  The JAX pipeline is unit-tested
 against this model, and this model is validated by decoding its streams with
 ``golden.decoder`` and checking recon equality.
 

@@ -1,9 +1,9 @@
-"""The flagship TPU encoder: jitted per-frame pipeline + sequence runtime.
+"""The encoder: jitted per-frame pipeline + sequence runtime.
 
 Pipeline per frame (one XLA program, all macroblocks batched):
   4:2:0 subsample -> motion estimation + prediction -> residual -> exact 64x64 DCT
-  matmul (MXU) -> quantise -> dequantise -> Chen-Wang IDCT (VPU) -> reconstruct ->
-  zigzag/VLC symbolise (gather-free one-hot lookups) -> barrel-merge bit packing
+  matmul -> quantise -> dequantise -> Chen-Wang integer IDCT -> reconstruct ->
+  zigzag/VLC symbolise (one-hot table lookups) -> barrel-merge bit packing
   into ONE byte-aligned frame payload, GOP/picture headers included (device-side
   timecode).  The host only prepends the per-sequence header bytes and appends the
   end code - the bitstream never touches the host until it is final bytes.
@@ -20,7 +20,6 @@ coefficient escape-coded).
 """
 from __future__ import annotations
 
-import os
 import time
 from typing import List, Optional, Tuple
 
@@ -42,12 +41,6 @@ DEFAULT_ROW_CAP = 2048       # words/slice budget (8 KB)
 DEFAULT_FRAME_CAP = 65536    # words/frame budget (256 KB)
 DEFAULT_BUDGET_BPS = 8       # pack-tree statistical level budget, bits/symbol-slot
                              # (0 = worst-case widths; see bitpack.pack_symbols)
-
-# transform implementation: "pallas" (fused strip-layout kernel,
-# ops/pallas/transform.py), "xla" (coefficient-major ops/dct.py), or "auto"
-# (pallas on TPU).  Bit-exact either way.
-_TRANSFORM_IMPL = os.environ.get("FPGA_MPEG2_TRANSFORM_IMPL", "auto")
-
 
 def _blockify(plane: jnp.ndarray, bs: int) -> jnp.ndarray:
     h, w = plane.shape
@@ -72,6 +65,57 @@ def _untile_y(t4: jnp.ndarray) -> jnp.ndarray:
     return t4.reshape(nby, nbx, 2, 2, 8, 8).transpose(0, 1, 2, 4, 3, 5).reshape(nby, nbx, 16, 16)
 
 
+def transform_recon(y, u, v, mr: motion.MotionResult, q_level: int):
+    """Residual -> DCT -> quantise -> dequantise -> IDCT -> reconstruct for
+    every macroblock of a band of 4:2:0 planes.  Returns (quant_zig
+    (nby, nbx, 6, 64) int32 in zig-zag order, recon_y, recon_u, recon_v)."""
+    nby, nbx = mr.inter.shape
+    cur_t = _tiles(_blockify(y.astype(jnp.int32), 16),
+                   _blockify(u.astype(jnp.int32), 8),
+                   _blockify(v.astype(jnp.int32), 8))
+    pred_t = _tiles(mr.pred_y, mr.pred_u, mr.pred_v)
+
+    # coefficient-major layout (64, N): one full-width vector per coefficient
+    resid = (cur_t - pred_t).reshape(-1, 64).T
+    inter_t = jnp.repeat(mr.inter.reshape(-1), 6)
+    q = dct.quantize(dct.fdct(resid), inter_t, q_level)
+    rres = dct.idct(dct.dequantize(q, inter_t, q_level))
+    recon_t = jnp.clip(pred_t.reshape(-1, 64).T + rres, 0, 255) \
+        .T.reshape(nby, nbx, 6, 64)
+
+    recon_y = _unblockify(_untile_y(recon_t[:, :, :4])).astype(jnp.uint8)
+    recon_u = _unblockify(recon_t[:, :, 4].reshape(nby, nbx, 8, 8)).astype(jnp.uint8)
+    recon_v = _unblockify(recon_t[:, :, 5].reshape(nby, nbx, 8, 8)).astype(jnp.uint8)
+    q_zig = q[entropy._ZIG_INV_NP, :]     # zig-zag scan: row permutation
+    return q_zig.T.reshape(nby, nbx, 6, 64), recon_y, recon_u, recon_v
+
+
+def symbolize_frame_core(
+    y444: jnp.ndarray, u444: jnp.ndarray, v444: jnp.ndarray,   # (H, W) uint8
+    prev_y: jnp.ndarray, prev_u: jnp.ndarray, prev_v: jnp.ndarray,
+    i_frame: jnp.ndarray,                                      # scalar int32
+    frame_no: jnp.ndarray,                                     # scalar int32 (timecode)
+    *, yr: int, ur: int, q_level: int,
+):
+    """The pipeline up to symbolisation: returns (recon_y, recon_u, recon_v,
+    slots (2 + nby, S) uint32).  On its own it is the budget-overflow retry
+    path: packing the slot grid on the HOST (utils/native.pack_symbols_host,
+    C++) needs no budget caps and no worst-case device buffers, so an
+    overflowing frame costs one extra device step + a native stitch instead
+    of a second compiled program with ~36K-word buffers."""
+    y, u, v = colorspace.subsample_420(y444, u444, v444)
+    mr = motion.estimate_and_predict(y, u, v, prev_y, prev_u, prev_v,
+                                     i_frame == 0, yr, ur)
+    quant_zig, recon_y, recon_u, recon_v = transform_recon(y, u, v, mr, q_level)
+    sym = entropy.symbolize_frame(quant_zig, mr.inter, mr.mvx, mr.mvy,
+                                  i_frame, frame_no, q_level)
+    return recon_y, recon_u, recon_v, sym.slots
+
+
+symbolize_frame_device = jax.jit(
+    symbolize_frame_core, static_argnames=("yr", "ur", "q_level"))
+
+
 def encode_frame_core(
     y444: jnp.ndarray, u444: jnp.ndarray, v444: jnp.ndarray,   # (H, W) uint8
     prev_y: jnp.ndarray, prev_u: jnp.ndarray, prev_v: jnp.ndarray,
@@ -82,52 +126,11 @@ def encode_frame_core(
 ):
     """Un-jitted single-frame pipeline.  Returns (recon_y, recon_u, recon_v,
     frame_words (frame_cap,) uint32, frame_bits, overflow flag)."""
-    y, u, v = colorspace.subsample_420(y444, u444, v444)
-
-    if _TRANSFORM_IMPL == "pallas" or (_TRANSFORM_IMPL == "auto"
-                                       and jax.default_backend() == "tpu"):
-        # strip-layout production path: ME emits prediction PLANES, the fused
-        # transform kernel does resid/DCT/quant/IDCT/recon in-strip, and only
-        # the quantised coefficients are relayouted for the entropy stage
-        from ..ops.pallas.transform import transform_recon_pallas
-        mr = motion.estimate_and_predict_planes(
-            y, u, v, prev_y, prev_u, prev_v, i_frame == 0, yr, ur)
-        quant_zig, recon_y, recon_u, recon_v = transform_recon_pallas(
-            y, u, v, mr.pred_y, mr.pred_u, mr.pred_v, mr.inter, q_level)
-        sym = entropy.symbolize_frame(quant_zig, mr.inter, mr.mvx, mr.mvy,
-                                      i_frame, frame_no, q_level)
-    else:
-        mr = motion.estimate_and_predict(y, u, v, prev_y, prev_u, prev_v,
-                                         i_frame == 0, yr, ur)
-        nby, nbx = mr.inter.shape
-
-        yb = _blockify(y.astype(jnp.int32), 16)
-        ub = _blockify(u.astype(jnp.int32), 8)
-        vb = _blockify(v.astype(jnp.int32), 8)
-        cur_t = _tiles(yb, ub, vb)
-        pred_t = _tiles(mr.pred_y, mr.pred_u, mr.pred_v)
-
-        # coefficient-major layout (64, N): tile axis in lanes, full occupancy
-        resid = (cur_t - pred_t).reshape(-1, 64).T
-        inter_t = jnp.repeat(mr.inter.reshape(-1), 6)
-        f = dct.fdct(resid)
-        q = dct.quantize(f, inter_t, q_level)
-        rres = dct.idct(dct.dequantize(q, inter_t, q_level))
-        recon_t = jnp.clip(pred_t.reshape(-1, 64).T + rres, 0, 255) \
-            .T.reshape(nby, nbx, 6, 64)
-
-        recon_y = _unblockify(_untile_y(recon_t[:, :, :4])).astype(jnp.uint8)
-        recon_u = _unblockify(recon_t[:, :, 4].reshape(nby, nbx, 8, 8)) \
-            .astype(jnp.uint8)
-        recon_v = _unblockify(recon_t[:, :, 5].reshape(nby, nbx, 8, 8)) \
-            .astype(jnp.uint8)
-
-        q_zig = q[entropy._ZIG_INV_NP, :]     # zig-zag scan: row permutation
-        sym = entropy.symbolize_frame(q_zig.T.reshape(nby, nbx, 6, 64),
-                                      mr.inter, mr.mvx, mr.mvy, i_frame,
-                                      frame_no, q_level)
+    recon_y, recon_u, recon_v, slots = symbolize_frame_core(
+        y444, u444, v444, prev_y, prev_u, prev_v, i_frame, frame_no,
+        yr=yr, ur=ur, q_level=q_level)
     row_words, row_bits, pack_ovf = bitpack.pack_slots(
-        sym.slots, row_cap, budget_bps=budget_bps)
+        slots, row_cap, budget_bps=budget_bps)
     fwords, fbits = bitpack.merge_rows(row_words, row_bits, frame_cap)
     overflow = pack_ovf | (row_bits > 32 * row_cap).any() | (fbits > 32 * frame_cap)
     return recon_y, recon_u, recon_v, fwords, fbits, overflow
@@ -137,47 +140,6 @@ encode_frame_device = jax.jit(
     encode_frame_core,
     static_argnames=("yr", "ur", "q_level", "row_cap", "frame_cap", "budget_bps"),
 )
-
-
-def symbolize_frame_core(
-    y444, u444, v444, prev_y, prev_u, prev_v, i_frame, frame_no,
-    *, yr: int, ur: int, q_level: int,
-):
-    """The pipeline up to symbolisation: returns (recon_y, recon_u, recon_v,
-    slots (2 + nby, S) uint32).  The budget-overflow retry path: packing the
-    slot grid on the HOST (utils/native.pack_symbols_host, C++) needs no
-    budget caps and no worst-case device buffers, so an overflowing frame
-    costs one extra device step + a native stitch instead of a second
-    compiled program with ~36K-word buffers."""
-    y, u, v = colorspace.subsample_420(y444, u444, v444)
-    mr = motion.estimate_and_predict(y, u, v, prev_y, prev_u, prev_v,
-                                     i_frame == 0, yr, ur)
-    nby, nbx = mr.inter.shape
-
-    yb = _blockify(y.astype(jnp.int32), 16)
-    ub = _blockify(u.astype(jnp.int32), 8)
-    vb = _blockify(v.astype(jnp.int32), 8)
-    cur_t = _tiles(yb, ub, vb)
-    pred_t = _tiles(mr.pred_y, mr.pred_u, mr.pred_v)
-    resid = (cur_t - pred_t).reshape(-1, 64).T
-    inter_t = jnp.repeat(mr.inter.reshape(-1), 6)
-    f = dct.fdct(resid)
-    q = dct.quantize(f, inter_t, q_level)
-    rres = dct.idct(dct.dequantize(q, inter_t, q_level))
-    recon_t = jnp.clip(pred_t.reshape(-1, 64).T + rres, 0, 255) \
-        .T.reshape(nby, nbx, 6, 64)
-    recon_y = _unblockify(_untile_y(recon_t[:, :, :4])).astype(jnp.uint8)
-    recon_u = _unblockify(recon_t[:, :, 4].reshape(nby, nbx, 8, 8)).astype(jnp.uint8)
-    recon_v = _unblockify(recon_t[:, :, 5].reshape(nby, nbx, 8, 8)).astype(jnp.uint8)
-
-    q_zig = q[entropy._ZIG_INV_NP, :]
-    sym = entropy.symbolize_frame(q_zig.T.reshape(nby, nbx, 6, 64), mr.inter,
-                                  mr.mvx, mr.mvy, i_frame, frame_no, q_level)
-    return recon_y, recon_u, recon_v, sym.slots
-
-
-symbolize_frame_device = jax.jit(
-    symbolize_frame_core, static_argnames=("yr", "ur", "q_level"))
 
 
 def stitch_slots_host(slots: np.ndarray) -> bytes:
@@ -250,9 +212,9 @@ def encode_gop_scan_core(
         steps = f // unroll
 
     # guard margin per the append_bitstring sizing contract: the frame-payload
-    # width is at most frame_cap words (the Pallas merge pads to exactly that),
-    # so seq_cap + frame_cap + 1 words guarantee the append window always fits;
-    # overflow is still checked against the logical seq_cap below
+    # width is at most frame_cap words, so seq_cap + frame_cap + 1 words
+    # guarantee the append window always fits; overflow is still checked
+    # against the logical seq_cap below
     seq_w0 = jnp.zeros((seq_cap + frame_cap + 1,), jnp.uint32)
     carry0 = (prev_y, prev_u, prev_v, seq_w0, jnp.int32(0),
               i_frame0, frame_no0, jnp.asarray(False))
@@ -277,7 +239,7 @@ def words_to_bytes(words: np.ndarray, nbits: int) -> bytes:
 
 
 class Encoder:
-    """TPU-native MPEG-2 encoder.
+    """MPEG-2 encoder running on the default JAX device.
 
     API mirrors the reference module contract (RTL/mpeg2encoder.v:10-38):
     construction-time quality/range knobs, per-sequence size/GOP configuration,

@@ -1,18 +1,19 @@
 """Parallel variable-length bit packing as a barrel-shift merge tree.
 
-TPU-first design
-----------------
+Design
+------
 The reference packs bits serially, 170 bits/cycle through a shift register
 (RTL/mpeg2encoder.v:2879-2956).  Scatter-based packing (offset prefix-sum + two
-scatter-adds per symbol) is the GPU idiom but TPU scatters serialise (~5 ns/elem).
-Instead we pack by *associative reduction*: a bit-string with an explicit length is
+scatter-adds per symbol) is the usual GPU idiom; whether it beats this tree on
+the card is an open measurement.  Here symbols pack by *associative reduction*:
+a bit-string with an explicit length is
 a monoid under concatenation, so symbols merge pairwise in log2(S) levels.  Each
 merge is vectorised word arithmetic:
 
   concat(A, B):  shift B right by len(A) bits = an elementwise funnel shift by
   (len & 31) plus a word-offset rotation by (len >> 5), done as a log2(C)-step
   barrel shifter of STATIC shifts selected by the offset's bits - no gather, no
-  scatter, pure VPU.
+  scatter, only elementwise word arithmetic.
 
 Invariant: buffers are left-justified, zero-filled beyond their length, so OR is
 concatenation.  Everything also byte-aligns for free (lengths rounded up to 8 with
@@ -21,17 +22,10 @@ zero padding already in place), reproducing the stage-V alignment rule
 """
 from __future__ import annotations
 
-import os
 from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-
-# pack-tree implementation: "pallas" (whole tree VMEM-resident, HBM touched
-# once per direction), "xla" (per-level HBM buffers), or "auto" (pallas on TPU
-# for full-size rows).  Identical outputs; see ops/pallas/pack.py.
-_PACK_IMPL = os.environ.get("FPGA_MPEG2_PACK_IMPL", "auto")
-
 
 def _shift_words_right(x: jnp.ndarray, t: int) -> jnp.ndarray:
     """Shift along the last (word) axis by a static t words, filling zeros."""
@@ -98,15 +92,8 @@ def pack_slots(slots: jnp.ndarray, cap_words: int,
 
     slots: (..., S) -> (words (..., cap_words) uint32, bits (...,) int32
     byte-aligned, overflow () bool).  Semantics as pack_symbols."""
-    if slots.ndim == 2 and cap_words <= 8192 and (
-            _PACK_IMPL == "pallas"
-            or (_PACK_IMPL == "auto" and slots.shape[-1] >= 1024
-                and jax.default_backend() == "tpu")):
-        from .pallas.pack import pack_slots_pallas
-        return pack_slots_pallas(slots, cap_words, budget_bps, budget_margin)
-    return _pack_symbols_xla(slots & ((1 << 27) - 1),
-                             (slots >> 27).astype(jnp.int32),
-                             cap_words, budget_bps, budget_margin)
+    return pack_symbols(slots & ((1 << 27) - 1), (slots >> 27).astype(jnp.int32),
+                        cap_words, budget_bps, budget_margin)
 
 
 def pack_symbols(codes: jnp.ndarray, lens: jnp.ndarray, cap_words: int,
@@ -127,20 +114,6 @@ def pack_symbols(codes: jnp.ndarray, lens: jnp.ndarray, cap_words: int,
     always exact) and reported in the overflow flag, on which callers re-encode
     with worst-case buffers (models/encoder.py's retry path).
     """
-    # cap_words <= 8192 keeps the phase-2 kernel's level buffers inside VMEM;
-    # the worst-case-retry path (analytic slice bound, ~36K words) takes the
-    # XLA tree instead - it is exercised rarely and only for correctness
-    if codes.ndim == 2 and cap_words <= 8192 and (
-            _PACK_IMPL == "pallas"
-            or (_PACK_IMPL == "auto" and codes.shape[-1] >= 1024
-                and jax.default_backend() == "tpu")):
-        from .pallas.pack import pack_symbols_pallas
-        return pack_symbols_pallas(codes, lens, cap_words,
-                                   budget_bps, budget_margin)
-    return _pack_symbols_xla(codes, lens, cap_words, budget_bps, budget_margin)
-
-
-def _pack_symbols_xla(codes, lens, cap_words, budget_bps, budget_margin):
     s = codes.shape[-1]
     c = _pad_last(codes.astype(jnp.uint32), s % 2)
     l = _pad_last(lens.astype(jnp.int32), s % 2)
@@ -195,19 +168,7 @@ def merge_rows(words: jnp.ndarray, bits: jnp.ndarray, cap_words: int
     """Concatenate R left-justified bit-strings (rows) into one: (R, C) -> (cap,).
 
     Used for slice rows -> frame payload and frame payloads -> sequence payload;
-    rows are byte-aligned by the caller so start-code alignment is preserved.
-
-    On TPU, geometries whose merge tree fits VMEM take the single-kernel
-    Pallas form (ops/pallas/pack.py merge_rows_pallas - one launch instead of
-    ~log2(R) * log2(W) small XLA ops, the small-frame launch floor); wide
-    frames and the worst-case retry caps use this XLA tree."""
-    if words.ndim == 2 and words.shape[-1] % 128 == 0 and words.shape[0] > 1 \
-            and (_PACK_IMPL == "pallas"
-                 or (_PACK_IMPL == "auto"
-                     and jax.default_backend() == "tpu")):
-        from .pallas.pack import merge_fits_vmem, merge_rows_pallas
-        if merge_fits_vmem(words.shape, cap_words):
-            return merge_rows_pallas(words, bits, cap_words)
+    rows are byte-aligned by the caller so start-code alignment is preserved."""
     buf, bl = words, bits
     while buf.shape[-2] > 1:
         m = buf.shape[-2]
@@ -237,11 +198,10 @@ def append_bitstring(seq: jnp.ndarray, seq_bits: jnp.ndarray,
     genuinely overflowing append (off > seq_cap words, which the check
     flags) hits dynamic_slice's offset clamp and corrupts the (discarded)
     content.  Without the margin the clamp bites BELOW the overflow
-    threshold - in the worst case (C + 1 == buffer width) every append
-    lands at word 0 and the corruption is silent (the r04 on-chip
-    chunked-vs-streaming divergence: the Pallas merge pads frame payloads
-    to exactly frame_cap words, and push_chunk sized seq_cap == frame_cap)
-    - so undersized accumulators are rejected at trace time."""
+    threshold - in the worst case (C + 1 == buffer width, e.g. frame
+    payloads frame_cap words wide appended with seq_cap == frame_cap) every
+    append lands at word 0 and the corruption is silent - so undersized
+    accumulators are rejected at trace time."""
     if b.shape[-1] + 1 > seq.shape[-1]:
         raise ValueError(
             f"append_bitstring accumulator ({seq.shape[-1]} words) must "
@@ -264,10 +224,9 @@ def append_bitstrings_batched(seq: jnp.ndarray, seq_bits: jnp.ndarray,
     b_bits (B,) -> per-stream independent appends.
 
     NOT vmap(append_bitstring): vmapping turns the scalar dynamic slices into
-    gather/scatter (per-row dynamic offsets), which serialise on TPU at
-    ~ns/element - for a 1 MB frame payload that is tens of ms per scan step,
-    dwarfing the encode itself (the round-2 "8-stream batching tax").  Here
-    the funnel shift vectorises over the batch and the placement runs as B
+    gather/scatter with per-row dynamic offsets over the whole (B, cap)
+    buffer.  Here the funnel shift vectorises over the batch and the
+    placement runs as B
     STATIC-row dynamic_update_slice ops, each touching only C+1 words -
     the exact single-stream fast path, B times.
 

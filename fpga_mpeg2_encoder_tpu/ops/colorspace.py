@@ -1,60 +1,24 @@
 """4:4:4 -> 4:2:0 chroma downsample (stages A-C, RTL/mpeg2encoder.v:1086-1171).
 
-TPU-first design: the RTL streams pixels through a one-line buffer; on TPU the
-whole frame is one fused elementwise pass (two mean2 reductions, each with +1
-rounding - NOT a single mean4, the roundings compound differently).
-
-Two bit-identical implementations, selected by FPGA_MPEG2_SUBSAMPLE_IMPL
-(auto | bitcast | strided):
-
-* "strided": the direct formulation with stride-2 lane/sublane slices.  XLA
-  lowers each `p[:, 0::2]` on TPU as a gather-ish strided relayout of a uint8
-  plane - measured at ~0.64 ms/frame at 1080p (r04 per-stage profile), an
-  effective ~9 GB/s, far off HBM speed of light for a 5.5 MB pass.
-* "bitcast": zero strided accesses.  Horizontal pairs become one uint16 lane
-  via a bitcast of (H, W/2, 2) uint8 (adjacent bytes ARE the pair in row-major
-  order), so the mean is pure elementwise byte arithmetic; vertical pairs
-  become the two contiguous halves of a (H/2, W) reshape (row 2r and row 2r+1
-  laid end to end), so the mean is a static lane-slice add.  Bit-exactness is
-  structural: mean2 is commutative, so even the bitcast byte order is
-  irrelevant - only the pairing matters, and reshape guarantees it.
-  (tests/test_jax_pipeline.py::test_subsample_impls_bitexact pins it anyway.)
-
-"auto" uses bitcast on TPU and strided elsewhere (CPU test-suite behaviour is
-identical either way; both paths stay covered).
+The RTL streams pixels through a one-line buffer; here the whole frame is one
+fused elementwise pass (two mean2 reductions, each with +1 rounding - NOT a
+single mean4, the roundings compound differently).
 """
 from __future__ import annotations
 
-import os
-
-import jax
 import jax.numpy as jnp
-
-_SUBSAMPLE_IMPL = os.environ.get("FPGA_MPEG2_SUBSAMPLE_IMPL", "auto")
 
 
 def mean2(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     return (1 + a.astype(jnp.int32) + b.astype(jnp.int32)) >> 1
 
 
-def _half_bitcast(p: jnp.ndarray) -> jnp.ndarray:
-    """(H, W) uint8 -> (H/2, W/2) uint8, H-then-V mean2 pairs, no strides."""
-    h, w = p.shape
-    x = jax.lax.bitcast_convert_type(p.reshape(h, w // 2, 2), jnp.uint16)
-    one = jnp.uint16(1)
-    uh = (one + (x & jnp.uint16(0xFF)) + (x >> 8)) >> 1       # (h, w/2)
-    z = uh.reshape(h // 2, w)                                 # rows 2r | 2r+1
-    return ((one + z[:, : w // 2] + z[:, w // 2:]) >> 1).astype(jnp.uint8)
-
-
-def _half_strided(p: jnp.ndarray) -> jnp.ndarray:
+def _half(p: jnp.ndarray) -> jnp.ndarray:
+    """(H, W) uint8 -> (H/2, W/2) uint8: horizontal pairs, then vertical."""
     ph = mean2(p[:, 0::2], p[:, 1::2])
     return mean2(ph[1::2], ph[0::2]).astype(jnp.uint8)
 
 
 def subsample_420(y: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray):
     """(H, W) uint8 4:4:4 planes -> (y, u420, v420) with u/v at (H/2, W/2)."""
-    bc = _SUBSAMPLE_IMPL == "bitcast" or (
-        _SUBSAMPLE_IMPL == "auto" and jax.default_backend() == "tpu")
-    half = _half_bitcast if bc else _half_strided
-    return y, half(u), half(v)
+    return y, _half(u), _half(v)

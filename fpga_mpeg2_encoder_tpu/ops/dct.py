@@ -1,23 +1,23 @@
 """Forward DCT + quantise and dequantise + inverse DCT, batched over tiles.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 * Everything runs in coefficient-major layout ``(64, N)``: the tile axis (millions
-  of elements) lives in vector lanes at full occupancy, while the 64 coefficient
-  positions index the sublane-major axis.  Butterfly slices like x[k] are then
-  full (N,)-wide vector ops instead of 8-wide ones (a 16x lane-utilisation win).
+  of elements) is the minor, contiguous axis, while the 64 coefficient positions
+  index the major axis.  Butterfly slices like x[k] are then full (N,)-wide
+  vector ops instead of 8-wide ones.
 * The reference's stage-G DCT (RTL/mpeg2encoder.v:2025-2062) keeps phase 1 at full
   precision and rounds once after phase 2, so the whole 2-D transform is ONE exact
   64x64 integer matmul: F = DCT64 @ X.  We split DCT64 = 128*HI + LO (|HI|<=62,
-  0<=LO<=127) so each half runs as an exact float32 matmul on the MXU (every
-  partial sum stays below 2^24), recombined in int32 on the VPU.
+  0<=LO<=127) so each half runs as an exact bf16 matmul with f32 accumulation
+  (every partial sum stays below 2^24), recombined in int32.
 * The quantisers (RTL:2064-2077, 2128-2150) are elementwise integer ops with the
   reference's exact 16-bit wrap semantics; the intra division by the quantiser
   matrix runs as float32 reciprocal multiplication + floor, which is exact for
   the full 16-bit dividend range (validated exhaustively in tests).
 * The inverse DCT is the reference's fixed-point Chen-Wang pipeline
   (RTL:843-972) with its 18-bit row truncations and 32-bit wrap semantics; it is
-  NOT a linear map, so it runs as vectorised butterflies on the VPU (int32).
+  NOT a linear map, so it runs as vectorised int32 butterflies.
 """
 from __future__ import annotations
 
@@ -28,15 +28,13 @@ from ..core import tables as T
 
 # bf16 inputs are exact here: residuals are integers in [-255, 255] and bf16
 # represents all integers of magnitude <= 256; LO in [0,127], |HI| <= 62;
-# accumulation is f32 (every partial sum < 2^24, also exact).
-# The matrices are embedded block-diagonally 8x (kron(I8, M)): XLA's TPU codegen
-# degenerates on thin matmuls with a very wide minor dimension ((64,64)@(64,300k)
-# runs ~250x slower than (512,512)@(512,40k) at 8x the FLOPs), so the N axis is
-# folded 8-way into the contraction.
-# IMPORTANT: constants are kept as NUMPY arrays and converted inside the traced
-# functions.  Module-level jnp device arrays closed over by jitted code take a
-# pathological constant path in this runtime (~8 ms/frame per dot); numpy values
-# embed as program literals and are free.
+# accumulation is f32 (every partial sum < 2^24, also exact).  No f32 operand
+# ever reaches a matmul, so TF32 rounding cannot enter.
+# The matrices are embedded block-diagonally 8x (kron(I8, M)) and the N axis is
+# folded 8-way into the contraction: a (512,512)@(512,N/8) product instead of a
+# thin (64,64)@(64,N) one.
+# Constants are kept as NUMPY arrays and converted inside the traced functions,
+# so they embed as program literals.
 _DCT64_LO_NP = np.kron(np.asarray(T.DCT64_LO), np.eye(8)).astype(np.float32)  # (512, 512)
 _DCT64_HI_NP = np.kron(np.asarray(T.DCT64_HI), np.eye(8)).astype(np.float32)
 _INTRA_Q_COL_NP = np.asarray(T.INTRA_Q).reshape(64, 1).astype(np.int32)

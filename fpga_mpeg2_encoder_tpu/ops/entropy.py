@@ -1,7 +1,7 @@
-"""Vectorised entropy coding: VLC symbolisation on TPU, gather-free.
+"""Vectorised entropy coding: VLC symbolisation of a whole frame at once.
 
-TPU-first design
-----------------
+Design
+------
 The reference emits symbols serially through a 7-chunk-per-cycle FSM
 (RTL/mpeg2encoder.v:2476-2956).  The sequential state it carries - per-slice DC
 predictors, per-slice MV predictors, per-tile run lengths - is *linear*: every
@@ -15,10 +15,10 @@ So the whole frame symbolises in parallel:
 * run lengths     : prev-nonzero index via cumulative max over the zig order
                     (incl. the inter-DC-zero counts-as-run rule, RTL:2795-2834).
 
-VLC tables are applied WITHOUT gathers (TPU gathers run ~9 ns/elem and compile
-poorly): every data-dependent lookup is a one-hot einsum on the MXU.  Table values
-are stored as bf16 byte-planes (each 0..255, exactly representable), contracted
-against an exact 0/1 one-hot, accumulated in f32 - bit-exact by construction.
+VLC tables are applied without gathers: every data-dependent lookup is a
+one-hot matmul.  Table values are stored as bf16 byte-planes (each 0..255,
+exactly representable), contracted against an exact 0/1 one-hot, accumulated
+in f32 - bit-exact by construction.
 The 111-entry B.14 run/level table is first compacted through a 5-case perfect
 key in [0, 192); everything outside it is the 24-bit escape, computed
 arithmetically (RTL:2541-2543).
@@ -29,7 +29,6 @@ RTL:2684-2698), ready for the barrel-merge bit packer (ops/bitpack.py).
 """
 from __future__ import annotations
 
-import os
 from typing import NamedTuple, Tuple
 
 import jax
@@ -37,10 +36,6 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core import tables as T
-
-# AC run/level symbolisation: "pallas" (VMEM-resident kernel, ops/pallas/
-# acsym.py), "xla" (one-hot lookups through HBM), "auto" (pallas on TPU)
-_ACSYM_IMPL = os.environ.get("FPGA_MPEG2_ACSYM_IMPL", "auto")
 
 SLOTS_PER_MB = 4 + 6 * 65
 HDR_SLOTS = 3             # slice start code, row number, quantiser scale
@@ -51,16 +46,17 @@ _ZIG_INV_NP = np.asarray(T.ZIGZAG_INV)
 def _onehot_lookup(idx: jnp.ndarray, table: np.ndarray) -> jnp.ndarray:
     """Exact table lookup without gathers: idx int32 in [0, K) -> int32 values.
 
-    table: numpy int array, values < 2**24 (f32-exact).  The one-hot rides the
-    MXU in f32 (0/1 one-hot entries and the integer table values are exact, and
-    exactly one product is nonzero per output).  For K > 32 the key factors as
+    table: numpy int array, values < 2**24 (f32-exact).  The one-hot is a
+    matmul with f32 accumulation (0/1 one-hot entries and the integer table
+    values are exact, and exactly one product is nonzero per output).  For K > 32 the key factors as
     hi*16+lo: a 16-wide one-hot matmul against a (16, K/16) table produces every
     hi candidate at once, then ceil(K/16) masked selects pick the right one -
     the materialised one-hot shrinks K/16-fold."""
     k = table.shape[0]
     assert int(table.max(initial=0)) < (1 << 24)
-    # NOTE: TPU matmuls truncate f32 operands to bf16 at default precision, so
-    # table values are decomposed into byte planes (0..255, bf16-exact).
+    # NOTE: at default precision a matmul may round f32 operands (TF32 on the
+    # GPU), so table values are decomposed into byte planes (0..255, bf16-exact)
+    # and every operand is bf16.
     def planes_of(t):
         return np.stack([t & 255, (t >> 8) & 255, (t >> 16) & 255], -1)
     if k <= 32:
@@ -74,8 +70,8 @@ def _onehot_lookup(idx: jnp.ndarray, table: np.ndarray) -> jnp.ndarray:
     for kk in range(k):
         t2[kk & 15, kk >> 4] = planes_of(np.asarray(table[kk]))
     ohlo = ((idx & 15)[..., None] == jnp.arange(16)).astype(jnp.bfloat16)
-    # byte-plane values are 0..255, bf16-exact, so the MXU result can live in
-    # bf16 end to end - halves the HBM traffic of the hi-selection pass
+    # byte-plane values are 0..255, bf16-exact, so the matmul result can live
+    # in bf16 end to end - halves the memory traffic of the hi-selection pass
     p = jax.lax.dot_general(ohlo, jnp.asarray(t2.reshape(16, khi * 3),
                                               dtype=jnp.bfloat16),
                             (((ohlo.ndim - 1,), (0,)), ((), ())),
@@ -307,41 +303,24 @@ def symbolize_frame(
 
     # ---- AC run/level (RTL:2823-2834) + slot-grid assembly --------------------
     emit0 = intra[:, :, None] | (dc != 0)                         # position-0 emits
-    if _ACSYM_IMPL == "pallas" or (_ACSYM_IMPL == "auto"
-                                   and jax.default_backend() == "tpu"):
-        # the kernel routes every AC symbol to its slot in VMEM and merges the
-        # pre-packed non-AC slots; only the small grid is built here
-        from .pallas.acsym import ac_slot_grid_pallas
-        zmod = zig.at[..., 0].set(emit0.astype(zig.dtype))
-        tile_small = jnp.concatenate(
-            [dc_p[..., None], jnp.zeros((nby, nbx, 6, 63), jnp.uint32),
-             eob_p[..., None]], axis=-1)                          # (nby,nbx,6,65)
-        mb_small = jnp.concatenate(
-            [type_p[..., None], mvx_p[..., None], mvy_p[..., None],
-             cbp_p[..., None], tile_small.reshape(nby, nbx, 6 * 65)], axis=-1)
-        small = jnp.concatenate(
-            [hdr_p, mb_small.reshape(nby, nbx * SLOTS_PER_MB)], axis=1)
-        slice_slots = ac_slot_grid_pallas(
-            zmod.reshape(nby, nbx * 6 * 64), small)
-    else:
-        k_idx = jnp.arange(64)
-        emits = (zig != 0).at[..., 0].set(emit0)
-        ew = jnp.where(emits, k_idx, -1)
-        pm = jax.lax.cummax(ew, axis=ew.ndim - 1)
-        prev = jnp.concatenate([jnp.full(pm.shape[:-1] + (1,), -1, pm.dtype),
-                                pm[..., :-1]], axis=-1)
-        run = k_idx - prev - 1                                    # (nby, nbx, 6, 64)
-        ac_code, ac_len = _ac_symbol(jnp.where(zig == 0, 1, zig), run)
-        ac_len = jnp.where(zig == 0, 0, ac_len)
-        ac_p = pack_slot(ac_code, ac_len)[..., 1:]                # positions 1..63
+    k_idx = jnp.arange(64)
+    emits = (zig != 0).at[..., 0].set(emit0)
+    ew = jnp.where(emits, k_idx, -1)
+    pm = jax.lax.cummax(ew, axis=ew.ndim - 1)
+    prev = jnp.concatenate([jnp.full(pm.shape[:-1] + (1,), -1, pm.dtype),
+                            pm[..., :-1]], axis=-1)
+    run = k_idx - prev - 1                                        # (nby, nbx, 6, 64)
+    ac_code, ac_len = _ac_symbol(jnp.where(zig == 0, 1, zig), run)
+    ac_len = jnp.where(zig == 0, 0, ac_len)
+    ac_p = pack_slot(ac_code, ac_len)[..., 1:]                    # positions 1..63
 
-        tile_slots = jnp.concatenate(
-            [dc_p[..., None], ac_p, eob_p[..., None]], axis=-1)   # (nby,nbx,6,65)
-        mb_slots = jnp.concatenate(
-            [type_p[..., None], mvx_p[..., None], mvy_p[..., None],
-             cbp_p[..., None], tile_slots.reshape(nby, nbx, 6 * 65)], axis=-1)
-        slice_slots = jnp.concatenate(
-            [hdr_p, mb_slots.reshape(nby, nbx * SLOTS_PER_MB)], axis=1)
+    tile_slots = jnp.concatenate(
+        [dc_p[..., None], ac_p, eob_p[..., None]], axis=-1)       # (nby,nbx,6,65)
+    mb_slots = jnp.concatenate(
+        [type_p[..., None], mvx_p[..., None], mvy_p[..., None],
+         cbp_p[..., None], tile_slots.reshape(nby, nbx, 6 * 65)], axis=-1)
+    slice_slots = jnp.concatenate(
+        [hdr_p, mb_slots.reshape(nby, nbx * SLOTS_PER_MB)], axis=1)
 
     if not include_headers:
         return FrameSymbols(slice_slots)

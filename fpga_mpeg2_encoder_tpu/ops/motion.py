@@ -1,19 +1,19 @@
 """Motion estimation + prediction over the whole macroblock grid (stages X/Y/Z/F,
 RTL/mpeg2encoder.v:1310-1918).
 
-TPU-first design
-----------------
+Design
+------
 The RTL searches one macroblock at a time with 169 parallel SAD accumulators and
 recenters its reference window by shifting registers (REF_SHIFT_*, RTL:1719-1740).
-Here all macroblocks run concurrently, and - crucially - the design is GATHER- and
-SCATTER-FREE (TPU gathers cost ~9 ns/element and compile poorly):
+Here all macroblocks run concurrently as whole-frame array operations built from
+static slices, with no gathers or scatters:
 
 * full-pel: 169 statically-shifted whole-frame absolute differences; the 16x16
-  block reduction rides the MXU as an exact bf16 matmul against a block-diagonal
-  0/1 matrix (|diff| <= 255 and 0/1 entries are exact in bf16; accumulation is f32);
+  block reduction is an exact bf16 matmul against a block-diagonal 0/1 matrix
+  (|diff| <= 255 and 0/1 entries are exact in bf16; accumulation is f32);
 * argmin with the exact RTL tie-break (largest dy, then largest dx among minima,
   RTL:1694-1710) via an order-encoding key;
-* recentering: the TPU analog of REF_SHIFT is a 13+13-case masked select over
+* recentering: the array analog of REF_SHIFT is a 13+13-case masked select over
   statically shifted sliding-window tensors - every macroblock's 18x18 search
   window lands at its own motion vector with pure static slices;
 * half-pel: four interpolated grids (full/H/V/HV), 9 candidate SADs, the exact
@@ -26,23 +26,10 @@ All arithmetic is integer-exact against the golden model.
 """
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-
-# motion-estimation implementation: "fused" (ONE Pallas kernel doing SAD
-# volume + argmin + recentering + half-pel + luma AND chroma prediction,
-# ops/pallas/me.py), "split" (the same work as two kernel launches - luma ME
-# then chroma prediction, with the mv maps round-tripping through HBM),
-# "xla" (this module's staged formulation), or "auto" (fused on TPU).
-_ME_IMPL = os.environ.get("FPGA_MPEG2_ME_IMPL", "auto")
-
-
-def _use_kernel() -> bool:
-    return _ME_IMPL in ("fused", "split") or (
-        _ME_IMPL == "auto" and jax.default_backend() == "tpu")
 
 
 class MotionResult(NamedTuple):
@@ -77,7 +64,7 @@ def _find_min_10(v: jnp.ndarray) -> jnp.ndarray:
 def _block_reduce_matmul(x: jnp.ndarray, bs: int) -> jnp.ndarray:
     """(H, W) nonneg int (values <= 255) -> (H//bs, W//bs) block sums.
 
-    Column groups reduce on the MXU (x_bf16 @ block-diagonal 0/1 matrix; |x| <= 255
+    Column groups reduce as a matmul (x_bf16 @ block-diagonal 0/1 matrix; |x| <= 255
     and 0/1 entries are bf16-exact, accumulation is f32), then the row groups
     reduce with a cheap f32 reshape-sum.  Every partial sum stays below 2^24, so
     the result is exact."""
@@ -154,60 +141,13 @@ def estimate_and_predict(
     yr: int,                   # static: luma search range
     ur: int,                   # static: chroma search range
 ) -> MotionResult:
-    h, w = cur_y.shape
-    nby = h // 16
-
-    if _use_kernel():
-        from .pallas import me as k_me
-        if _ME_IMPL == "split":
-            inter, mvx, mvy, pred_y = k_me.motion_estimate_pallas(
-                cur_y, prev_y, is_iframe, yr)
-            pred_u, pred_v = k_me.chroma_pred_pallas(prev_u, prev_v,
-                                                     inter, mvx, mvy, ur)
-        else:
-            inter, mvx, mvy, pred_y, pred_u, pred_v = \
-                k_me.motion_estimate_fused_pallas(
-                    cur_y, prev_y, prev_u, prev_v, is_iframe, yr, ur)
-        return MotionResult(inter, mvx, mvy, pred_y, pred_u, pred_v)
-
+    nby = cur_y.shape[0] // 16
     return estimate_and_predict_local(
         cur_y,
         jnp.pad(prev_y, ((8, 8), (0, 0))),
         jnp.pad(prev_u, ((4, 4), (0, 0))),
         jnp.pad(prev_v, ((4, 4), (0, 0))),
         is_iframe, yr, ur, jnp.int32(0), jnp.int32(nby))
-
-
-def estimate_and_predict_planes(
-    cur_y, cur_u, cur_v, prev_y, prev_u, prev_v, is_iframe, yr: int, ur: int,
-) -> MotionResult:
-    """As estimate_and_predict, but pred_y/pred_u/pred_v are PIXEL PLANES
-    ((H, W) / (H/2, W/2) int32) - the frame-strip form the fused Pallas
-    transform kernel consumes (ops/pallas/transform.py), skipping the
-    tile-major marshalling entirely on the production path."""
-    h, w = cur_y.shape
-    nby = h // 16
-    if _use_kernel():
-        from .pallas import me as k_me
-        if _ME_IMPL == "split":
-            inter, mvx, mvy, pred_y = k_me.motion_estimate_pallas(
-                cur_y, prev_y, is_iframe, yr, as_plane=True)
-            pred_u, pred_v = k_me.chroma_pred_pallas(
-                prev_u, prev_v, inter, mvx, mvy, ur, as_plane=True)
-        else:
-            inter, mvx, mvy, pred_y, pred_u, pred_v = \
-                k_me.motion_estimate_fused_pallas(
-                    cur_y, prev_y, prev_u, prev_v, is_iframe, yr, ur,
-                    as_plane=True)
-        return MotionResult(inter, mvx, mvy, pred_y, pred_u, pred_v)
-    mr = estimate_and_predict(cur_y, cur_u, cur_v, prev_y, prev_u, prev_v,
-                              is_iframe, yr, ur)
-
-    def unblk(t):
-        nb_y, nb_x, bs, _ = t.shape
-        return t.transpose(0, 2, 1, 3).reshape(nb_y * bs, nb_x * bs)
-    return MotionResult(mr.inter, mr.mvx, mr.mvy, unblk(mr.pred_y),
-                        unblk(mr.pred_u), unblk(mr.pred_v))
 
 
 def estimate_and_predict_local(
@@ -220,70 +160,18 @@ def estimate_and_predict_local(
     ur: int,
     first_mb_row: jnp.ndarray,   # traced: global MB row of local row 0
     total_mb_rows: jnp.ndarray,  # traced: global MB row count
-    as_planes: bool = False,     # pred as pixel planes (transform-kernel form)
 ) -> MotionResult:
-    """Band-local motion estimation for slice-row sharding (SURVEY section 2.9
-    SP/CP axis): identical math to the whole-frame path, with the reference
-    planes' +-8/+-4-row halos already exchanged (parallel/halo.py; the RTL
-    analog is the +-YR-row reference window fetch, RTL/mpeg2encoder.v:1364-
-    1373) and frame-edge candidate masking on GLOBAL row indices, so shard
-    boundaries are not mistaken for frame edges.
-
-    Dispatches to the same production Pallas kernels as the whole-frame path
-    on TPU (VERDICT round-2: the sharded pipeline must not run a permanently
-    divergent formulation), with the XLA formulation as fallback."""
-    if _use_kernel():
-        from .pallas import me as k_me
-        if _ME_IMPL == "split":
-            inter, mvx, mvy, pred_y = k_me.motion_estimate_pallas(
-                cur_y, prev_y_h, is_iframe, yr,
-                first_mb_row=first_mb_row, total_mb_rows=total_mb_rows,
-                halo=True, as_plane=as_planes)
-            pred_u, pred_v = k_me.chroma_pred_pallas(
-                prev_u_h, prev_v_h, inter, mvx, mvy, ur, halo=True,
-                as_plane=as_planes)
-        else:
-            inter, mvx, mvy, pred_y, pred_u, pred_v = \
-                k_me.motion_estimate_fused_pallas(
-                    cur_y, prev_y_h, prev_u_h, prev_v_h, is_iframe, yr, ur,
-                    first_mb_row=first_mb_row, total_mb_rows=total_mb_rows,
-                    halo=True, as_plane=as_planes)
-        return MotionResult(inter, mvx, mvy, pred_y, pred_u, pred_v)
-    mr = _estimate_and_predict_local_xla(
-        cur_y, prev_y_h, prev_u_h, prev_v_h, is_iframe, yr, ur,
-        first_mb_row, total_mb_rows)
-    if not as_planes:
-        return mr
-
-    def unblk(t):
-        nb_y, nb_x, bs, _ = t.shape
-        return t.transpose(0, 2, 1, 3).reshape(nb_y * bs, nb_x * bs)
-    return MotionResult(mr.inter, mr.mvx, mr.mvy, unblk(mr.pred_y),
-                        unblk(mr.pred_u), unblk(mr.pred_v))
-
-
-def _estimate_and_predict_local_xla(
-    cur_y: jnp.ndarray,        # (Hl, W) uint8: a band of macroblock rows
-    prev_y_h: jnp.ndarray,     # (Hl + 16, W): recon band + 8-row halo each side
-    prev_u_h: jnp.ndarray,     # (Hl/2 + 8, W/2): + 4-row halo
-    prev_v_h: jnp.ndarray,
-    is_iframe: jnp.ndarray,
-    yr: int,
-    ur: int,
-    first_mb_row: jnp.ndarray,   # traced: global MB row of local row 0
-    total_mb_rows: jnp.ndarray,  # traced: global MB row count
-) -> MotionResult:
-    """Band-local motion estimation for slice-row sharding (SURVEY section 2.9
-    SP/CP axis): identical math to the whole-frame path, but the reference
-    planes arrive with their +-8/+-4-row halos already exchanged
-    (parallel/halo.py; the RTL analog is the +-YR-row reference window fetch,
-    RTL:1364-1373) and frame-edge candidate masking uses GLOBAL row indices,
-    so shard boundaries are not mistaken for frame edges."""
+    """Band-local motion estimation, the one formulation behind both the
+    whole-frame path and slice-row sharding (SURVEY section 2.9 SP/CP axis):
+    the reference planes arrive with their +-8/+-4-row halos already
+    exchanged (parallel/halo.py; the RTL analog is the +-YR-row reference
+    window fetch, RTL:1364-1373) and frame-edge candidate masking uses GLOBAL
+    row indices, so shard boundaries are not mistaken for frame edges."""
     h, w = cur_y.shape
     nby, nbx = h // 16, w // 16
     cy16 = cur_y.astype(jnp.int16)
 
-    # ---- full-pel SAD volume (XLA formulation) --------------------------------
+    # ---- full-pel SAD volume --------------------------------------------------
     prevp = jnp.pad(prev_y_h[8 - yr:8 + h + yr], ((0, 0), (yr, yr))) \
         .astype(jnp.int16)
     sads = []

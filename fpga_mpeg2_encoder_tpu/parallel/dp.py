@@ -1,7 +1,7 @@
 """Data-parallel multi-stream encoding: a batch of independent video streams sharded
 over the ``stream`` mesh axis.
 
-This is the TPU equivalent of deploying N copies of the reference IP (SURVEY.md
+This is the device equivalent of deploying N copies of the reference IP (SURVEY.md
 section 2.9 / BASELINE config 5: "Batched 8-stream 1080p ... per-chip stream
 isolation").  Streams never communicate, so the jitted program contains zero
 collectives and per-stream output stays bit-exact regardless of batch size or mesh
@@ -66,11 +66,9 @@ def encode_gops_batched(
 
     This is deliberately NOT vmap(encode_gop_scan_core): under vmap the
     sequence-append's dynamic slices become gather/scatter over the (B,
-    seq_cap) buffer with per-stream offsets, which serialise on TPU - the
-    prime suspect for the round-2 8-stream batching tax (aggregate 344.8 vs
-    421-428 single-stream, BENCH_CONFIGS_r02).  The scan-of-vmap form keeps
-    every per-frame stage batched (pallas kernels get a leading grid axis)
-    and does the B appends as static-row scalar-offset slice updates.
+    seq_cap) buffer with per-stream offsets.  The scan-of-vmap form keeps
+    every per-frame stage batched and does the B appends as static-row
+    scalar-offset slice updates.
 
     ``unroll`` encodes that many frames per scan step (bit-identical; see
     encode_gop_scan_core) - lets XLA overlap one frame's entropy tail with

@@ -4,8 +4,8 @@ reference frame.
 P-frame motion estimation for a macroblock row needs +-YR rows (YR <= 6) of the
 previous frame's reconstruction beyond its own shard (SURVEY.md section 2.9).  When a
 frame's slice rows are sharded over a mesh axis, those rows live on the neighbouring
-devices; ``exchange_halo`` moves them over ICI with two ``lax.ppermute`` shifts -
-the TPU-native analog of a context-parallel ring's neighbour exchange.
+devices; ``exchange_halo`` moves them with two ``lax.ppermute`` shifts - the
+neighbour exchange of a context-parallel ring.
 
 The reference needs no such machinery only because it is a single chip; the RTL's
 equivalent hazard is handled by the one-slice write-delay memory

@@ -2,15 +2,15 @@
 
 The reference is a single FPGA with zero external memory (README.md:24); its only
 inter-unit parallelism is its ~20-stage pipeline (SURVEY.md section 2.9).  The
-TPU-native scaling axes are:
+device scaling axes are:
 
 * ``stream`` - data parallelism over independent video streams (embarrassingly
   parallel, preserves bit-exactness trivially);
 * ``slice``  - optional sequence-parallel sharding of one frame's slice rows with a
   +-YR-row halo exchange of the reconstructed reference (parallel/halo.py).
 
-The communication substrate is XLA collectives over ICI via jax.lax - there is no
-NCCL/MPI analog to build (SURVEY.md section 5).
+The communication substrate is XLA collectives via jax.lax (NCCL on GPUs) -
+there is no transport to build (SURVEY.md section 5).
 """
 from __future__ import annotations
 
@@ -32,9 +32,9 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = "stream") -> Mesh:
 def make_mesh2d(n_stream: int, n_slice: int,
                 axes: tuple = ("stream", "slice")) -> Mesh:
     """2-D mesh: independent streams on the first axis (DP, no collectives),
-    slice-row shards on the second (halo exchange rings over ICI).  On real
-    hardware the slice axis should map to the faster/inner ICI dimension since
-    it carries the only communication."""
+    slice-row shards on the second (halo exchange).  Cards joined all to all
+    (NVLink) reach each other at one rate, so the layout follows the
+    algorithm alone: the slice axis carries the only communication."""
     devs = jax.devices()
     need = n_stream * n_slice
     if len(devs) < need:

@@ -5,9 +5,10 @@ the shard's own rows (SURVEY.md section 2.9 SP/CP axis):
 
 * 4:2:0 subsampling - row pairs never straddle a 16-row shard boundary;
 * motion estimation - the only cross-shard dependency: the previous frame's
-  reconstruction halo (8 luma / 4 chroma rows each side) moves over ICI with
-  two ``lax.ppermute`` shifts (parallel/halo.py), the TPU-native analog of
-  the RTL's +-YR-row reference window fetch (RTL/mpeg2encoder.v:1364-1373);
+  reconstruction halo (8 luma / 4 chroma rows each side) moves between
+  devices with two ``lax.ppermute`` shifts (parallel/halo.py), the array
+  analog of the RTL's +-YR-row reference window fetch
+  (RTL/mpeg2encoder.v:1364-1373);
   frame-edge candidate masking uses GLOBAL row indices so shard boundaries
   are not mistaken for frame edges;
 * transforms and reconstruction - per-macroblock, fully local;
@@ -26,6 +27,7 @@ including the edge shards).
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import jax
@@ -36,22 +38,17 @@ from ..models.encoder import (
     DEFAULT_BUDGET_BPS,
     DEFAULT_FRAME_CAP,
     DEFAULT_ROW_CAP,
-    _blockify,
-    _tiles,
-    _unblockify,
-    _untile_y,
+    transform_recon,
 )
-from ..ops import bitpack, colorspace, dct, entropy, motion
+from ..ops import bitpack, colorspace, entropy, motion
 from .halo import exchange_halo
 
 
-def _make_local_step(nby: int, nbx: int, rows_l: int, *,
+def _make_local_step(nby: int, rows_l: int, *,
                      yr: int, ur: int, q_level: int,
                      row_cap: int, budget_bps: int, axis: str):
     """Per-shard frame step (this device's slice rows only): the body shared by
     the 1-D slice-sharded encoder and the 2-D stream x slice composition."""
-    from ..models.encoder import _TRANSFORM_IMPL
-
     def local_step(y, u, v, py, pu, pv, i_frame, frame_no):
         # y/u/v/py: (H/nsh, W); pu/pv: (H/2/nsh, W/2)
         sh = jax.lax.axis_index(axis)
@@ -60,38 +57,10 @@ def _make_local_step(nby: int, nbx: int, rows_l: int, *,
         py_h = exchange_halo(py, 8, axis)
         pu_h = exchange_halo(pu, 4, axis)
         pv_h = exchange_halo(pv, 4, axis)
-        tf_pallas = _TRANSFORM_IMPL == "pallas" or (
-            _TRANSFORM_IMPL == "auto" and jax.default_backend() == "tpu")
         mr = motion.estimate_and_predict_local(
             ys, py_h, pu_h, pv_h, i_frame == 0, yr, ur,
-            first_row, jnp.int32(nby), as_planes=tf_pallas)
-
-        if tf_pallas:
-            # the transform kernel is band-local (no cross-MB dependencies),
-            # so the sharded path runs the same production kernel
-            from ..ops.pallas.transform import transform_recon_pallas
-            quant_zig, ry, ru, rv = transform_recon_pallas(
-                ys, us, vs, mr.pred_y, mr.pred_u, mr.pred_v, mr.inter,
-                q_level)
-        else:
-            yb = _blockify(ys.astype(jnp.int32), 16)
-            ub = _blockify(us.astype(jnp.int32), 8)
-            vb = _blockify(vs.astype(jnp.int32), 8)
-            cur_t = _tiles(yb, ub, vb)
-            pred_t = _tiles(mr.pred_y, mr.pred_u, mr.pred_v)
-            resid = (cur_t - pred_t).reshape(-1, 64).T
-            inter_t = jnp.repeat(mr.inter.reshape(-1), 6)
-            q = dct.quantize(dct.fdct(resid), inter_t, q_level)
-            rres = dct.idct(dct.dequantize(q, inter_t, q_level))
-            recon_t = jnp.clip(pred_t.reshape(-1, 64).T + rres, 0, 255) \
-                .T.reshape(rows_l, nbx, 6, 64)
-            ry = _unblockify(_untile_y(recon_t[:, :, :4])).astype(jnp.uint8)
-            ru = _unblockify(recon_t[:, :, 4].reshape(rows_l, nbx, 8, 8)) \
-                .astype(jnp.uint8)
-            rv = _unblockify(recon_t[:, :, 5].reshape(rows_l, nbx, 8, 8)) \
-                .astype(jnp.uint8)
-            quant_zig = q[entropy._ZIG_INV_NP, :].T.reshape(rows_l, nbx, 6, 64)
-
+            first_row, jnp.int32(nby))
+        quant_zig, ry, ru, rv = transform_recon(ys, us, vs, mr, q_level)
         sym = entropy.symbolize_frame(
             quant_zig, mr.inter, mr.mvx, mr.mvy,
             i_frame, frame_no, q_level,
@@ -103,64 +72,11 @@ def _make_local_step(nby: int, nbx: int, rows_l: int, *,
     return local_step
 
 
-def _compile_with_demotion(build, probe_inputs, demote):
-    """Build a jitted sharded encoder with the production kernel selection;
-    if the probe compile fails (e.g. Mosaic rejects a Pallas kernel under
-    shard_map - different layout/VMA paths than the single-chip call), flip
-    the shared impl knobs to the bit-identical XLA formulations and rebuild.
-
-    This mirrors bench.py's graceful-degradation ladder: the RTL contract has
-    no error path (RTL/mpeg2encoder.v:16-37, the module always completes), so
-    neither does the production sharded encoder.  All kernel combinations are
-    bit-exact (tests/test_spatial.py), so a demotion only affects speed; the
-    demoted knobs stay set process-wide (consistent with bench.py) and the
-    demotion is reported on stderr.
-
-    ``demote=None`` probes only on a TPU backend (Mosaic is the only lowering
-    that can reject a kernel; CPU tests would pay a pointless compile).
-    """
-    import sys
-
-    from ..models import encoder as M
-    from ..ops import bitpack as _bp, entropy as _en, motion as _mo
-
-    if demote is None:
-        demote = jax.default_backend() == "tpu"
-    if not demote:
-        return build()
-    last = None
-    for impls, label in ((None, "all production kernels"),
-                         (("auto", "auto", "auto", "split"),
-                          "ME luma/chroma kernels split"),
-                         (("xla", "auto", "auto", "auto"),
-                          "transform kernel disabled"),
-                         (("xla", "xla", "xla", "auto"),
-                          "entropy/pack kernels disabled"),
-                         (("xla", "xla", "xla", "xla"),
-                          "all XLA formulations")):
-        if impls is not None:
-            (M._TRANSFORM_IMPL, _en._ACSYM_IMPL,
-             _bp._PACK_IMPL, _mo._ME_IMPL) = impls
-        try:
-            fn = build()
-            fn.lower(*probe_inputs()).compile()
-            if impls is not None:
-                print(f"WARNING: sharded encoder demoted to {label}: "
-                      f"{type(last).__name__}: {str(last)[:300]}",
-                      file=sys.stderr)
-            return fn
-        except Exception as e:
-            last = e
-    raise RuntimeError("sharded encoder failed to compile on every kernel "
-                       f"combination: {type(last).__name__}: {str(last)[:300]}")
-
-
 def make_sharded_frame_encoder(
     mesh: Mesh, height: int, width: int, *,
     yr: int, ur: int, q_level: int,
     row_cap: int = DEFAULT_ROW_CAP, frame_cap: int = DEFAULT_FRAME_CAP,
     budget_bps: int = DEFAULT_BUDGET_BPS, axis: str = "slice",
-    demote: bool | None = None,
 ):
     """Build a jitted slice-row-sharded single-frame encoder.
 
@@ -174,64 +90,48 @@ def make_sharded_frame_encoder(
     was truncated against ``row_cap``/``frame_cap``/``budget_bps`` and MUST
     NOT be shipped - re-encode the frame through the host-stitch retry path
     (models/encoder.Encoder handles this automatically; callers using this
-    factory directly gather the per-MB symbols and stitch on host, see
-    ops/pallas/pack.py's contract note).  On a TPU backend the factory
-    probe-compiles the production kernel set and demotes unlowerable kernels
-    to the bit-identical XLA twins (``demote`` overrides: True forces the
-    probe, False skips it).
+    factory directly gather the per-MB symbols and stitch on host, as
+    models/encoder.symbolize_frame_core + stitch_slots_host do).
     """
     nsh = mesh.shape[axis]
-    nby, nbx = height // 16, width // 16
+    nby = height // 16
     if nby % nsh != 0:
         raise ValueError(f"{nby} macroblock rows do not divide {nsh} shards")
     rows_l = nby // nsh
+    local_step = _make_local_step(nby, rows_l, yr=yr, ur=ur,
+                                  q_level=q_level, row_cap=row_cap,
+                                  budget_bps=budget_bps, axis=axis)
+    sharded = jax.shard_map(
+        local_step, mesh=mesh,
+        in_specs=(P(axis, None), P(axis, None), P(axis, None),
+                  P(axis, None), P(axis, None), P(axis, None), P(), P()),
+        out_specs=(P(axis, None), P(axis, None), P(axis, None),
+                   P(axis, None), P(axis), P(axis)),
+    )
 
-    def build():
-        local_step = _make_local_step(nby, nbx, rows_l, yr=yr, ur=ur,
-                                      q_level=q_level, row_cap=row_cap,
-                                      budget_bps=budget_bps, axis=axis)
+    @jax.jit
+    def encode_frame(y444, u444, v444, prev_y, prev_u, prev_v,
+                     i_frame, frame_no):
+        ry, ru, rv, rows_w, rows_b, ovf_sh = sharded(
+            y444, u444, v444, prev_y, prev_u, prev_v, i_frame, frame_no)
+        fwords, fbits, overflow = _frame_tail(rows_w, rows_b, ovf_sh, i_frame,
+                                              frame_no, row_cap, frame_cap)
+        return ry, ru, rv, fwords, fbits, overflow
 
-        sharded = jax.shard_map(
-            local_step, mesh=mesh,
-            in_specs=(P(axis, None), P(axis, None), P(axis, None),
-                      P(axis, None), P(axis, None), P(axis, None), P(), P()),
-            out_specs=(P(axis, None), P(axis, None), P(axis, None),
-                       P(axis, None), P(axis), P(axis)),
-            # pallas_call outputs carry no varying-mesh-axes metadata; the
-            # byte-equality tests prove the sharding is correct
-            check_vma=False,
-        )
+    return encode_frame
 
-        @jax.jit
-        def encode_frame(y444, u444, v444, prev_y, prev_u, prev_v,
-                         i_frame, frame_no):
-            ry, ru, rv, rows_w, rows_b, ovf_sh = sharded(
-                y444, u444, v444, prev_y, prev_u, prev_v, i_frame, frame_no)
-            # GOP/picture header rows: tiny, packed outside the sharded region
-            hc, hl = entropy._header_rows(i_frame, frame_no, 16)
-            hw, hb, hovf = bitpack.pack_slots(entropy.pack_slot(hc, hl), row_cap)
-            all_w = jnp.concatenate([hw, rows_w], axis=0)
-            all_b = jnp.concatenate([hb, rows_b], axis=0)
-            fwords, fbits = bitpack.merge_rows(all_w, all_b, frame_cap)
-            overflow = ovf_sh.any() | hovf | (rows_b > 32 * row_cap).any() \
-                | (fbits > 32 * frame_cap)
-            return ry, ru, rv, fwords, fbits, overflow
 
-        return encode_frame
-
-    def probe_inputs():
-        plane, repl = sharded_frame_shardings(mesh, axis)
-        s = jax.ShapeDtypeStruct
-        return (s((height, width), jnp.uint8, sharding=plane),
-                s((height, width), jnp.uint8, sharding=plane),
-                s((height, width), jnp.uint8, sharding=plane),
-                s((height, width), jnp.uint8, sharding=plane),
-                s((height // 2, width // 2), jnp.uint8, sharding=plane),
-                s((height // 2, width // 2), jnp.uint8, sharding=plane),
-                s((), jnp.int32, sharding=repl),
-                s((), jnp.int32, sharding=repl))
-
-    return _compile_with_demotion(build, probe_inputs, demote)
+def _frame_tail(rows_w, rows_b, ovf_sh, i_frame, frame_no, row_cap, frame_cap):
+    """Merge the sharded slice rows under the GOP/picture header rows (tiny,
+    packed outside the sharded region) into one frame payload."""
+    hc, hl = entropy._header_rows(i_frame, frame_no, 16)
+    hw, hb, hovf = bitpack.pack_slots(entropy.pack_slot(hc, hl), row_cap)
+    all_w = jnp.concatenate([hw, rows_w], axis=0)
+    all_b = jnp.concatenate([hb, rows_b], axis=0)
+    fwords, fbits = bitpack.merge_rows(all_w, all_b, frame_cap)
+    overflow = ovf_sh.any() | hovf | (rows_b > 32 * row_cap).any() \
+        | (fbits > 32 * frame_cap)
+    return fwords, fbits, overflow
 
 
 def sharded_frame_shardings(mesh: Mesh, axis: str = "slice"
@@ -246,17 +146,16 @@ def make_sharded_batch_encoder(
     row_cap: int = DEFAULT_ROW_CAP, frame_cap: int = DEFAULT_FRAME_CAP,
     budget_bps: int = DEFAULT_BUDGET_BPS,
     stream_axis: str = "stream", slice_axis: str = "slice",
-    demote: bool | None = None,
 ):
     """2-D mesh composition: stream data-parallelism x slice-row sharding.
 
     A batch of independent streams is sharded over ``stream_axis`` (the
     embarrassingly parallel axis - zero collectives, SURVEY.md section 2.9 DP)
     while each frame's macroblock rows are simultaneously sharded over
-    ``slice_axis`` (halo exchange over ICI, as make_sharded_frame_encoder).
-    This is the production scale-out layout for a fleet of concurrent encodes
-    on a pod slice: (streams x slice-shards) devices, with all communication
-    confined to the slice axis rings.
+    ``slice_axis`` (halo exchange, as make_sharded_frame_encoder).  This is
+    the scale-out layout for many concurrent encodes on several devices:
+    (streams x slice-shards) devices, with all communication confined to the
+    slice axis.
 
     Returns ``fn(y444, u444, v444, prev_y, prev_u, prev_v, i_frame, frame_no)``
     over leading-batch arrays ((B, H, W) planes, (B,) scalars) ->
@@ -267,68 +166,38 @@ def make_sharded_batch_encoder(
     Overflow contract: a set ``overflow[b]`` means stream ``b``'s payload was
     truncated against the caps and MUST NOT be shipped - re-encode that frame
     via the host-stitch retry path (see make_sharded_frame_encoder's note).
-    On a TPU backend unlowerable Pallas kernels demote to the bit-identical
-    XLA twins (``demote`` as in make_sharded_frame_encoder).
     """
     n_stream = mesh.shape[stream_axis]
     n_slice = mesh.shape[slice_axis]
-    nby, nbx = height // 16, width // 16
+    nby = height // 16
     if batch % n_stream != 0:
         raise ValueError(f"batch {batch} does not divide {n_stream} stream shards")
     if nby % n_slice != 0:
         raise ValueError(f"{nby} macroblock rows do not divide {n_slice} shards")
     rows_l = nby // n_slice
+    local_step = _make_local_step(nby, rows_l, yr=yr, ur=ur,
+                                  q_level=q_level, row_cap=row_cap,
+                                  budget_bps=budget_bps, axis=slice_axis)
+    pb = P(stream_axis, slice_axis, None)   # (B, rows, W) planes / (B, nby, cap) words
+    ps = P(stream_axis)                     # (B,) per-stream scalars
+    sharded = jax.shard_map(
+        jax.vmap(local_step), mesh=mesh,
+        in_specs=(pb, pb, pb, pb, pb, pb, ps, ps),
+        out_specs=(pb, pb, pb, pb, P(stream_axis, slice_axis),
+                   P(stream_axis, slice_axis)),
+    )
+    tail = jax.vmap(functools.partial(_frame_tail, row_cap=row_cap,
+                                      frame_cap=frame_cap))
 
-    def build():
-        local_step = _make_local_step(nby, nbx, rows_l, yr=yr, ur=ur,
-                                      q_level=q_level, row_cap=row_cap,
-                                      budget_bps=budget_bps, axis=slice_axis)
+    @jax.jit
+    def encode_frames(y444, u444, v444, prev_y, prev_u, prev_v,
+                      i_frame, frame_no):
+        ry, ru, rv, rows_w, rows_b, ovf_sh = sharded(
+            y444, u444, v444, prev_y, prev_u, prev_v, i_frame, frame_no)
+        fwords, fbits, overflow = tail(rows_w, rows_b, ovf_sh, i_frame, frame_no)
+        return ry, ru, rv, fwords, fbits, overflow
 
-        pb = P(stream_axis, slice_axis, None)   # (B, rows, W) planes / (B, nby, cap) words
-        ps = P(stream_axis)                     # (B,) per-stream scalars
-        sharded = jax.shard_map(
-            jax.vmap(local_step), mesh=mesh,
-            in_specs=(pb, pb, pb, pb, pb, pb, ps, ps),
-            out_specs=(pb, pb, pb, pb, P(stream_axis, slice_axis),
-                       P(stream_axis, slice_axis)),
-            check_vma=False,
-        )
-
-        def frame_tail(rows_w, rows_b, ovf_sh, i_frame, frame_no):
-            # GOP/picture header rows: tiny, packed outside the sharded region
-            hc, hl = entropy._header_rows(i_frame, frame_no, 16)
-            hw, hb, hovf = bitpack.pack_slots(entropy.pack_slot(hc, hl), row_cap)
-            all_w = jnp.concatenate([hw, rows_w], axis=0)
-            all_b = jnp.concatenate([hb, rows_b], axis=0)
-            fwords, fbits = bitpack.merge_rows(all_w, all_b, frame_cap)
-            overflow = ovf_sh.any() | hovf | (rows_b > 32 * row_cap).any() \
-                | (fbits > 32 * frame_cap)
-            return fwords, fbits, overflow
-
-        @jax.jit
-        def encode_frames(y444, u444, v444, prev_y, prev_u, prev_v,
-                          i_frame, frame_no):
-            ry, ru, rv, rows_w, rows_b, ovf_sh = sharded(
-                y444, u444, v444, prev_y, prev_u, prev_v, i_frame, frame_no)
-            fwords, fbits, overflow = jax.vmap(frame_tail)(
-                rows_w, rows_b, ovf_sh, i_frame, frame_no)
-            return ry, ru, rv, fwords, fbits, overflow
-
-        return encode_frames
-
-    def probe_inputs():
-        plane, scalar = sharded_batch_shardings(mesh, stream_axis, slice_axis)
-        s = jax.ShapeDtypeStruct
-        return (s((batch, height, width), jnp.uint8, sharding=plane),
-                s((batch, height, width), jnp.uint8, sharding=plane),
-                s((batch, height, width), jnp.uint8, sharding=plane),
-                s((batch, height, width), jnp.uint8, sharding=plane),
-                s((batch, height // 2, width // 2), jnp.uint8, sharding=plane),
-                s((batch, height // 2, width // 2), jnp.uint8, sharding=plane),
-                s((batch,), jnp.int32, sharding=scalar),
-                s((batch,), jnp.int32, sharding=scalar))
-
-    return _compile_with_demotion(build, probe_inputs, demote)
+    return encode_frames
 
 
 def sharded_batch_shardings(mesh: Mesh, stream_axis: str = "stream",

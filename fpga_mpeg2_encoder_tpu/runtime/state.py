@@ -2,7 +2,7 @@
 
 The reference has no checkpointing; its closest concept is per-sequence restart
 (SEQ_IDLE, RTL/mpeg2encoder.v:1045-1047) and its only recovery mechanism is full
-reset (README.md:96).  SURVEY.md section 5 defines the TPU-native equivalent: the
+reset (README.md:96).  SURVEY.md section 5 defines the device-side equivalent: the
 full inter-frame state is tiny and explicit - the reconstructed reference frame,
 the GOP index, the timecode/frame counter, and the bytes emitted so far (entropy
 predictors reset per slice and carry nothing across frames).  This module

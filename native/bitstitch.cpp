@@ -1,6 +1,6 @@
 // Host-side serial bit stitcher for MPEG-2 variable-length symbol streams.
 //
-// The TPU pipeline packs its own bits on-device (ops/bitpack.py); this native
+// The device pipeline packs its own bits on-device (ops/bitpack.py); this native
 // component is the HOST-side equivalent for latency-sensitive streaming paths
 // and for the golden/offline tools: it concatenates (code, len<=24) symbol
 // arrays into a byte stream ~40x faster than the pure-Python BitWriter.

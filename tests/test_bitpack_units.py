@@ -121,3 +121,62 @@ def test_append_bitstrings_batched_matches_unbatched(rng):
     for k in range(B):
         assert int(seq_bits[k]) == int(refs[k][1]), k
         assert (np.asarray(seq)[k] == np.asarray(refs[k][0])).all(), k
+
+
+def test_pack_symbols_worst_case_caps_matches_bitwriter():
+    """Un-budgeted tree at a cap just above the worst case (700 symbols of up
+    to 24 bits = 525 words), half the slots empty."""
+    rng = np.random.default_rng(9)
+    r, s, cap = 5, 700, 640
+    lens = rng.integers(0, 25, (r, s)).astype(np.int32)
+    lens[rng.random((r, s)) < 0.5] = 0
+    codes = np.zeros((r, s), np.uint32)
+    nz = lens > 0
+    codes[nz] = rng.integers(0, 1 << 24, nz.sum()).astype(np.uint32) \
+        & ((1 << lens[nz].astype(np.uint64)) - 1).astype(np.uint32)
+    w, b, ovf = bitpack.pack_symbols(jnp.asarray(codes), jnp.asarray(lens), cap,
+                                     budget_bps=0)
+    assert not bool(ovf)
+    wh, bh = np.asarray(w), np.asarray(b)
+    for k, (ref_bytes, ref_bits) in enumerate(_reference_rows(codes, lens)):
+        assert int(bh[k]) == (ref_bits + 7) & ~7
+        assert wh[k].astype(">u4").tobytes()[: len(ref_bytes)] == ref_bytes, k
+
+
+@pytest.mark.parametrize("r,c,cap", [
+    (20, 128, 1024),      # CIF-like: 18 slice rows + headers
+    (5, 256, 512),        # tiny frame, odd row count, sub-16 rows
+    (33, 128, 8192),      # crosses the 32-row pow2 boundary
+])
+def test_merge_rows_matches_concatenation(r, c, cap):
+    """Byte-aligned rows merge into their concatenation; past ``cap`` words
+    the content is cut but the bit count stays exact."""
+    rng = np.random.default_rng(100 + r)
+    bits = (rng.integers(0, c * 24 // 8, (r,)) * 8).astype(np.int32)
+    words = np.zeros((r, c), np.uint32)
+    for k in range(r):
+        nw = (int(bits[k]) + 31) // 32
+        w = rng.integers(0, 1 << 32, nw, dtype=np.uint64).astype(np.uint32)
+        rem = int(bits[k]) % 32
+        if nw and rem:
+            w[-1] &= np.uint32((0xFFFFFFFF << (32 - rem)) & 0xFFFFFFFF)
+        words[k, :nw] = w
+    want = b"".join(words[k].astype(">u4").tobytes()[: bits[k] // 8]
+                    for k in range(r))
+    got_w, got_b = bitpack.merge_rows(jnp.asarray(words), jnp.asarray(bits), cap)
+    assert int(got_b) == int(bits.sum())
+    keep = min(len(want), 4 * cap)
+    assert np.asarray(got_w).astype(">u4").tobytes()[:keep] == want[:keep]
+
+
+def test_append_bitstring_rejects_undersized_accumulator():
+    """The sizing contract is enforced at trace time: an accumulator not
+    strictly wider than the appended width + 1 corrupts silently under
+    dynamic-slice clamping, so it must raise instead."""
+    with pytest.raises(ValueError, match="sizing contract"):
+        bitpack.append_bitstring(jnp.zeros(64, jnp.uint32), jnp.int32(0),
+                                 jnp.zeros(64, jnp.uint32), jnp.int32(32))
+    with pytest.raises(ValueError, match="sizing contract"):
+        bitpack.append_bitstrings_batched(
+            jnp.zeros((2, 64), jnp.uint32), jnp.zeros(2, jnp.int32),
+            jnp.zeros((2, 64), jnp.uint32), jnp.zeros(2, jnp.int32))

@@ -1,5 +1,8 @@
 """Multi-device tests on the virtual 8-device CPU mesh: stream-DP batched encoding
 (bit-exact per stream) and the slice-row halo exchange."""
+import os
+import sys
+
 import numpy as np
 import pytest
 
@@ -11,6 +14,7 @@ from fpga_mpeg2_encoder_tpu.parallel.dp import BatchEncoder
 from fpga_mpeg2_encoder_tpu.parallel.halo import sharded_row_sad
 from fpga_mpeg2_encoder_tpu.parallel.mesh import make_mesh
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 needs_8dev = pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 
 
@@ -75,8 +79,7 @@ def test_halo_exchange_sad_matches_single_chip(rng):
 
 
 def test_graft_entry_contract():
-    import sys
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, ROOT)
     import __graft_entry__ as ge
     fn, args = ge.entry()
     out = jax.jit(fn)(*args)
@@ -86,8 +89,7 @@ def test_graft_entry_contract():
 
 @needs_8dev
 def test_graft_dryrun_multichip():
-    import sys
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, ROOT)
     import __graft_entry__ as ge
     ge.dryrun_multichip(8)
 

@@ -1,6 +1,7 @@
 """Runtime/tooling tests: YUV IO, CLI encode/decode, checkpoint-resume, native
 bit-stitcher, stats."""
 import json
+import os
 import subprocess
 import sys
 
@@ -11,6 +12,9 @@ from fpga_mpeg2_encoder_tpu import Encoder, EncoderConfig, SequenceConfig
 from fpga_mpeg2_encoder_tpu.golden import encoder as G
 from fpga_mpeg2_encoder_tpu.runtime.state import EncoderState
 from fpga_mpeg2_encoder_tpu.utils import native, yuv
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CLI_ENV = {"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu", "PYTHONPATH": ROOT}
 
 
 class TestYuvIO:
@@ -36,9 +40,7 @@ class TestCli:
     def _run(self, args):
         return subprocess.run(
             [sys.executable, "-m", "fpga_mpeg2_encoder_tpu.cli.encode"] + args,
-            capture_output=True, text=True, cwd="/root/repo",
-            env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
-                 "PYTHONPATH": "/root/repo"})
+            capture_output=True, text=True, cwd=ROOT, env=CLI_ENV)
 
     def test_encode_decode_cli(self, tmp_path, video_factory):
         frames = video_factory(64, 64, 3)
@@ -58,9 +60,7 @@ class TestCli:
         r2 = subprocess.run(
             [sys.executable, "-m", "fpga_mpeg2_encoder_tpu.cli.decode",
              "--input", dst, "--ref", src],
-            capture_output=True, text=True, cwd="/root/repo",
-            env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
-                 "PYTHONPATH": "/root/repo"})
+            capture_output=True, text=True, cwd=ROOT, env=CLI_ENV)
         assert r2.returncode == 0, r2.stderr
         info = json.loads(r2.stdout)
         assert info["frames"] == 3 and info["types"] == "IPP"
@@ -204,9 +204,7 @@ def test_cli_three_sequences_back_to_back(tmp_path, video_factory):
     r = subprocess.run(
         [sys.executable, "-m", "fpga_mpeg2_encoder_tpu.cli.encode"]
         + args + ["--pframes", "1", "--quiet"],
-        capture_output=True, text=True, cwd="/root/repo",
-        env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
-             "PYTHONPATH": "/root/repo"})
+        capture_output=True, text=True, cwd=ROOT, env=CLI_ENV)
     assert r.returncode == 0, r.stderr
     for i, (w, h) in enumerate(sizes):
         frames = yuv.read_all(str(tmp_path / f"in{i}.yuv"), w, h)

@@ -146,59 +146,3 @@ def test_2d_mesh_stream_by_slice_bit_exact(rng):
             assert (np.asarray(rv)[b] == np.asarray(ref[2])).all(), (fi, b)
             prev_r[b] = tuple(ref[:3])
         prev_s = (ry, ru, rv)
-
-
-def test_sharded_demotion_ladder(rng, monkeypatch):
-    """VERDICT r03 item 6: a kernel that fails to lower under shard_map must
-    demote to the bit-identical XLA twins, not fail the production encoder.
-
-    The transform kernel is forced on ("pallas" impl) and its entry point is
-    monkeypatched to raise at trace time (the CPU analog of a Mosaic
-    rejection); with demote=True the factory must fall back and the payload
-    must stay byte-identical to the single-chip reference."""
-    from fpga_mpeg2_encoder_tpu.models import encoder as M
-    from fpga_mpeg2_encoder_tpu.ops.pallas import transform as T
-
-    def boom(*a, **k):
-        raise RuntimeError("injected Mosaic failure (test)")
-
-    monkeypatch.setattr(T, "transform_recon_pallas", boom)
-    monkeypatch.setattr(M, "_TRANSFORM_IMPL", "pallas")
-
-    w, h = 96, 128
-    mesh = make_mesh(8, axis="slice")
-    kw = dict(yr=6, ur=3, q_level=2)
-    enc = make_sharded_frame_encoder(mesh, h, w, demote=True, **kw)
-    # the ladder flips the shared impl knobs; they must land on a working set
-    assert M._TRANSFORM_IMPL == "xla"
-
-    plane_sh, _ = sharded_frame_shardings(mesh)
-    (y, u, v), = make_video(rng, w, h, 1, "pan")
-    z = np.zeros((h, w), np.uint8)
-    zc = np.zeros((h // 2, w // 2), np.uint8)
-    out_s = enc(jax.device_put(y, plane_sh), jax.device_put(u, plane_sh),
-                jax.device_put(v, plane_sh), jax.device_put(z, plane_sh),
-                jax.device_put(zc, plane_sh), jax.device_put(zc, plane_sh),
-                jnp.int32(0), jnp.int32(0))
-    ref = encode_frame_core(
-        jnp.asarray(y), jnp.asarray(u), jnp.asarray(v), jnp.asarray(z),
-        jnp.asarray(zc), jnp.asarray(zc), jnp.int32(0), jnp.int32(0),
-        row_cap=DEFAULT_ROW_CAP, frame_cap=DEFAULT_FRAME_CAP, **kw)
-    assert int(out_s[4]) == int(ref[4])
-    nw = (int(ref[4]) + 31) // 32
-    assert (np.asarray(out_s[3])[:nw] == np.asarray(ref[3])[:nw]).all()
-
-
-def test_sharded_demotion_all_fail_raises(monkeypatch):
-    """If even the all-XLA rung cannot compile, the factory raises with the
-    last error rather than returning a broken encoder."""
-    import fpga_mpeg2_encoder_tpu.parallel.spatial as S
-
-    def badbuild(*a, **k):
-        raise RuntimeError("nothing compiles")
-
-    monkeypatch.setattr(S, "_make_local_step", badbuild)
-    mesh = make_mesh(8, axis="slice")
-    with pytest.raises(RuntimeError, match="every kernel combination"):
-        make_sharded_frame_encoder(mesh, 128, 128, demote=True,
-                                   yr=6, ur=3, q_level=2)

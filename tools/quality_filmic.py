@@ -20,10 +20,12 @@ low-frequency-dominated statistics):
 Appends the row to docs/QUALITY.md.  Run: python tools/quality_filmic.py
 (CPU-safe; uses whatever backend is default).
 """
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import numpy as np
 
@@ -110,7 +112,7 @@ def main():
            f"numbers bracket, not reproduce, its row; bit-identity of the "
            f"datapath makes the rate/quality trade-off identical by "
            f"construction on any shared clip.\n")
-    with open("/root/repo/docs/QUALITY.md", "a") as f:
+    with open(os.path.join(ROOT, "docs", "QUALITY.md"), "a") as f:
         f.write(row)
     print("appended to docs/QUALITY.md", flush=True)
 

@@ -10,9 +10,11 @@ metrics.  Writes docs/QUALITY.md.
 
 Run: python tools/quality_sweep.py
 """
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import numpy as np
 
@@ -40,7 +42,7 @@ def main():
                          float(np.mean(ps)), float(np.min(ps))))
             print(rows[-1], flush=True)
 
-    with open("/root/repo/docs/QUALITY.md", "w") as f:
+    with open(os.path.join(ROOT, "docs", "QUALITY.md"), "w") as f:
         f.write(
 """# Quality / compression sweep
 
